@@ -23,7 +23,7 @@ def main():
     urllib.request.urlopen(base + "/", timeout=30).read()
     urllib.request.urlopen(base + enable, timeout=900).read()
     resp = urllib.request.urlopen(base + "/monitor", timeout=900)
-    # first frame = warmup (queue fill / first batch through the tunnel)
+    # first frame = warmup (queue fill / first batch through the device)
     boundary = b"--frame"
     buf = b""
     frames = -1

@@ -1,8 +1,8 @@
-"""bench.py must run unattended on the driver's TPU at round end — a
-NameError / API drift in a late rung would surface only there, after the
-expensive rungs had already burned their time.  ``--smoke`` runs every
-rung once at tiny shapes on the forced-CPU backend; this gates it in CI
-(subprocess: bench.py sets its own jax platform config)."""
+"""bench.py must run unattended on the accelerator — a NameError / API
+drift in a late rung would surface only there, after the expensive rungs
+had already burned their time.  ``--smoke`` runs every rung once at tiny
+shapes on the forced-CPU backend; this gates it in CI (subprocess:
+bench.py sets its own jax platform config)."""
 
 import json
 import os
@@ -26,13 +26,15 @@ def test_bench_smoke_runs_every_rung():
     assert rec["metric"] == "steered_power_heatmaps_per_sec_64ch_65x65"
     assert rec["value"] > 0
     # every ladder rung must have produced a number
-    for rung in ("highest", "high", "bf16", "high_equiv_kernel",
-                 "bf16_equiv_kernel", "f32_equiv_kernel", "pad",
+    assert rec["device"]["platform"] == "cpu"
+    for rung in ("highest", "high", "bf16", "highest_xla", "high_xla",
+                 "bf16_xla", "high_equiv_exact", "bf16_equiv_exact", "pad",
                  "convolve", "hybrid", "truncated",
                  "lerp_reference_shape_57x32_256ch",
                  "lerp_reference_shape_equiv_exact",
                  "fft_bartlett_reference_shape",
                  "live_loop_device_proxy_fps",
                  "mvdr_rls_per_frame_reference_shape",
-                 "mvdr_exact_per_frame_maps_reference_shape"):
+                 "mvdr_exact_per_frame_maps_reference_shape",
+                 "fused_display_cycle_fps_device_proxy"):
         assert f"# rung {rung}:" in out.stderr, f"missing rung {rung}"

@@ -1,7 +1,7 @@
 """The exact frequency-domain reformulation (ops/freq_equiv) must equal
 the time-domain family bit-comparably for EVERY algorithm — it is a
 reformulation, not an approximation: same output, no T axis in the
-per-frame contraction (~15x fewer MACs at the reference shape)."""
+per-frame contraction (~20x fewer MACs at the reference shape)."""
 
 import numpy as np
 import pytest
@@ -44,20 +44,15 @@ def test_equiv_pipeline_backend(tiny_cfg):
                      np.float32)
     out = np.asarray(p._power_fn(frame[None]))
     assert out.shape == (1, tiny_cfg.max_res_x, tiny_cfg.max_res_y)
-    # explicit fused equiv kernel backend (interpret mode on CPU)
-    pk = Pipeline(tiny_cfg, algorithm="lerp", replay_mode=True,
-                  power_backend="equiv_kernel")
-    outk = np.asarray(pk._power_fn(frame[None]))
-    assert outk.shape == (1, tiny_cfg.max_res_x, tiny_cfg.max_res_y)
-    with pytest.raises(ValueError):
-        Pipeline(tiny_cfg, power_backend="nope")
+    for bad in ("nope", "equiv_kernel"):
+        with pytest.raises(ValueError):
+            Pipeline(tiny_cfg, power_backend=bad)
 
 
 def test_equiv_auto_select_decision(tiny_cfg, monkeypatch):
-    """The pipeline auto-selects freq_equiv for ``high`` tables whenever
-    the MAC ratio clears the (low) bar and the stacked response planes
-    fit the HBM cap; bf16 ('default') and 'highest' rungs never select
-    it (fused kernel / bit-level XLA path respectively)."""
+    """The pipeline selects freq_equiv when the MAC-ratio bar is cleared
+    and the stacked response planes fit the memory cap; the 'highest'
+    tier never selects it (bit-level time-domain contract)."""
     from zybo_rt_sampler_image_detection_tpu.apps import pipeline
 
     sentinel = object()
@@ -65,77 +60,34 @@ def test_equiv_auto_select_decision(tiny_cfg, monkeypatch):
         "zybo_rt_sampler_image_detection_tpu.ops.freq_equiv"
         ".make_equiv_tables", lambda t: sentinel)
 
-    class FakeTables:
-        def __init__(self, D, T, M, N, tau_min=0, precision="high"):
-            import numpy as _np
+    def pick(D, T, M, N, precision="high"):
+        kind, obj = pipeline._select_power_backend(
+            FakeTables(D, T, M, N, precision=precision))
+        assert (obj is sentinel) == (kind == "freq_equiv")
+        return kind
 
-            self.W = _np.zeros((D, T, M), _np.float32)
-            self.n_samples = N
-            self.tau_min = tau_min
-            self.precision = precision
-
-    # reference-like: T=49, N=256 -> ratio ~20x, 862 MB planes -> selected
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(1824, 49, 256, 256)) is sentinel
-    # northstar-like short spread: ratio ~3.9x still clears the bar
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(4225, 8, 64, 256)) is sentinel
-    # bf16 rung (precision 'default') -> fused kernel wins -> None
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(4225, 8, 64, 256, precision="default")) is None
-    # bit-level exactness mode -> None
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(1824, 49, 256, 256, precision="highest")) is None
-    # degenerate single-tap spread: ratio below the bar -> None
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(4225, 1, 64, 256)) is None
-    # decisive ratio but stacked planes exceed the HBM cap -> None
-    assert pipeline._equiv_tables_if_favored(
-        FakeTables(40000, 49, 512, 256)) is None
+    # reference-like: T=49, N=256 -> ratio ~20x, 862 MB planes
+    assert pick(1824, 49, 256, 256) == "freq_equiv"
+    assert pick(1824, 49, 256, 256, "default") == "freq_equiv"
+    # 64-ch/65x65 spread (T=19): ratio ~8.7x stays on the time path
+    assert pick(4225, 19, 64, 256) == "xla"
+    assert pick(4225, 19, 64, 256, "default") == "xla"
+    # bit-level exactness mode
+    assert pick(1824, 49, 256, 256, "highest") == "xla"
+    # degenerate single-tap spread: ratio below the bar
+    assert pick(4225, 1, 64, 256) == "xla"
+    # decisive ratio but stacked planes exceed the memory cap
+    assert pick(40000, 49, 512, 256) == "xla"
 
 
-def test_equiv_kernel_auto_select_decision(tiny_cfg, monkeypatch):
-    """The fused equiv KERNEL serves ``high`` and ``bf16`` at any
-    shape passing the MAC bar (since the HIGH-precision DFT it wins the
-    ``high`` rung at the reference shape too — BENCHMARKS.md round 3);
-    degenerate spreads and HBM-cap violations fall through."""
-    from zybo_rt_sampler_image_detection_tpu.apps import pipeline
-    from zybo_rt_sampler_image_detection_tpu.ops import equiv_kernel
+class FakeTables:
+    """Shape-only stand-in for ``beamform.SteeringTables``."""
 
-    built = []
-
-    class FakeFused:
-        def __init__(self, t, *a, **kw):
-            built.append(t)
-            self._call = lambda f: f
-
-    monkeypatch.setattr(equiv_kernel, "FusedEquivBeamformer", FakeFused)
-
-    class FakeTables:
-        def __init__(self, D, T, M, N, tau_min=0, precision="high"):
-            import numpy as _np
-
-            self.W = _np.zeros((D, T, M), _np.float32)
-            self.n_samples = N
-            self.tau_min = tau_min
-            self.precision = precision
-
-    # northstar-like high (2M=128) -> kernel
-    assert pipeline._equiv_kernel_if_favored(
-        FakeTables(4225, 8, 64, 256)) is not None
-    # reference-like high (2M=512) -> kernel (23.5k vs XLA-equiv 22.6k
-    # since the HIGH-precision DFT)
-    assert pipeline._equiv_kernel_if_favored(
-        FakeTables(1824, 49, 256, 256)) is not None
-    # reference-like bf16 -> kernel (wins everywhere measured)
-    assert pipeline._equiv_kernel_if_favored(
-        FakeTables(1824, 49, 256, 256, precision="default")) is not None
-    # degenerate single-tap spread -> None
-    assert pipeline._equiv_kernel_if_favored(
-        FakeTables(4225, 1, 64, 256, precision="default")) is None
-    # HBM cap -> None
-    assert pipeline._equiv_kernel_if_favored(
-        FakeTables(40000, 49, 512, 256, precision="default")) is None
+    def __init__(self, D, T, M, N, tau_min=0, precision="high"):
+        self.W = np.zeros((D, T, M), np.float32)
+        self.n_samples = N
+        self.tau_min = tau_min
+        self.precision = precision
 
 
 @pytest.mark.slow

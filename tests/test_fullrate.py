@@ -294,7 +294,7 @@ def test_sharded_fullrate_pipeline(tiny_cfg):
     """SURVEY §2.4 ingest fan-in (VERDICT r3 #4): emulator -> native-or-
     python ingest -> BatchedHeatmapProducer with a mesh — every batch is
     ``device_put`` with a batch-over-"data" NamedSharding and launched
-    through the sharded production kernel on the 8-device virtual mesh.
+    through the sharded production program on the 8-device virtual mesh.
     Full-rate contract (zero drops) AND parity with the single-device
     path must both hold."""
     from zybo_rt_sampler_image_detection_tpu.parallel import mesh as pmesh

@@ -1,4 +1,4 @@
-"""FusedSensorStage program parity: the single packed-RPC device program
+"""FusedSensorStage program parity: the single packed device program
 must produce byte-identical composites/detections/meta to the separate
 paths it fuses (the production power program, the batched detector on
 device-resized inputs, and the DeviceCompositor), and the uint8

@@ -1,6 +1,6 @@
-"""Embedded listening in the fused display stage (VERDICT r4 #2): the
-whole combined product — steered power + YOLO + composite + gapless
-steered listening — in ONE packed device program per cycle (3 RPCs).
+"""Embedded listening in the fused display stage: the whole combined
+product — steered power + YOLO + composite + gapless steered listening —
+in ONE packed device program per cycle.
 
 Contracts gated here:
 * beam parity with :class:`BatchedMisoProducer`'s output (the
@@ -78,7 +78,9 @@ def test_fused_listen_gapless_and_parity(listen):
     quantized wire frames, in counter order."""
     from zybo_rt_sampler_image_detection_tpu.ops import freq
 
-    port = 21951 if listen == "time" else 21952
+    # ports of its own: test_demo_sensorfusion binds 21951/21952 and may
+    # run at the same time under xdist
+    port = 21955 if listen == "time" else 21956
     cfg = zrt.Config.tiny().replace(udp_port=port)
     n_frames, Km = 16, 4
     rng = np.random.default_rng(7)

@@ -33,22 +33,6 @@ def test_mesh_uses_all_devices():
 
 
 @pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
-def test_sharded_fused_matches_single(tiny_cfg, rng, shape):
-    """The Pallas kernel under shard_map (data x model) must equal the
-    single-device exact path."""
-    n_data, n_model = shape
-    frames = np.stack([synth_frame(tiny_cfg, rng) for _ in range(8)])
-    tables = beamform.make_lerp_tables(tiny_cfg)
-    ref = np.asarray(beamform.steered_power(frames, tables))
-
-    m = pmesh.make_mesh(n_data, n_model)
-    st = pmesh.shard_tables(tables, m)
-    fn = pmesh.sharded_fused_power(m, st, tile_d=8, chunk_b=2)
-    got = np.asarray(fn(frames))
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-10)
-
-
-@pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
 def test_sharded_equiv_matches_single(tiny_cfg, rng, shape):
     """The exact frequency-domain reformulation (the production ``high``
     path) sharded data x model — direction-padded stacked planes, sliced
@@ -72,28 +56,6 @@ def test_sharded_equiv_matches_single(tiny_cfg, rng, shape):
     # and matches the single-device equiv path up to reassociation
     single = np.asarray(freq_equiv.equiv_steered_power(frames, et))
     np.testing.assert_allclose(got, single, rtol=1e-5, atol=1e-9)
-
-
-@pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
-def test_sharded_equiv_kernel_matches_single(tiny_cfg, rng, shape):
-    """The fused equiv Pallas kernel under shard_map (data x model,
-    per-shard direction slices of the response planes) must equal the
-    single-device exact path — this is the production 'high'/'bf16'
-    kernel's multi-chip form."""
-    n_data, n_model = shape
-    frames = np.stack([synth_frame(tiny_cfg, rng) for _ in range(8)])
-    tables = beamform.make_tables(
-        tiny_cfg.replace(matmul_precision="high"), "lerp", cache=False)
-    ref = np.asarray(beamform.steered_power(frames, tables))
-
-    m = pmesh.make_mesh(n_data, n_model)
-    fn = pmesh.sharded_equiv_kernel_power(m, tables)
-    got = np.asarray(fn(frames))
-    np.testing.assert_allclose(got, ref, rtol=5e-5, atol=1e-8)
-    # batch sizes that don't divide the mesh pad globally (not per
-    # shard — per-shard padding would scramble the assembled rows)
-    got5 = np.asarray(fn(frames[:5]))
-    np.testing.assert_allclose(got5, ref[:5], rtol=5e-5, atol=1e-8)
 
 
 def test_sharded_fft_power_matches_single(tiny_cfg, rng):
@@ -161,24 +123,18 @@ def test_sharded_matches_single_hybrid(tiny_cfg, rng):
     st = pmesh.shard_tables(tables, m)
     got = np.asarray(pmesh.sharded_steered_power(m, st)(frames))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-12)
-    got2 = np.asarray(pmesh.sharded_fused_power(m, st, tile_d=8,
-                                                chunk_b=2)(frames))
-    np.testing.assert_allclose(got2, ref, rtol=1e-4, atol=1e-10)
 
 
 # ---------------------------------------------------------------------------
-# Reference-shape multi-chip validation (round-3 VERDICT #3): the tiny
-# config cannot stress the per-shard chunked-T selection or the odd
-# (127) bin count's padded-bin masking — these run the real shapes.
+# Reference-shape multi-device validation: the tiny config cannot stress
+# the direction-axis padding or the odd (127) bin count's padded-bin
+# masking — these run the real shapes.
 # ---------------------------------------------------------------------------
 
 @pytest.mark.slow
 def test_sharded_reference_shape_parity(rng):
     """Data x model sharding at the TRUE reference shape (57x32 grid, 256
-    mics, lerp T=49): numerics equal to single-device, and the per-shard
-    fused selector must choose the chunked-T variant (mesh.py — a
-    reference-shape shard blows the full delay-line VMEM scratch exactly
-    like one chip does)."""
+    mics, lerp T=49): numerics equal to single-device."""
     import zybo_rt_sampler_image_detection_tpu as zrt
 
     cfg = zrt.Config()
@@ -193,31 +149,6 @@ def test_sharded_reference_shape_parity(rng):
     fn = pmesh.sharded_steered_power(m, st)
     got = np.asarray(fn(frames))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-12)
-
-    # per-shard variant selection at the reference shard shape
-    # (D_loc = 1824/4 padded, T=49, M=192): must be the chunked-T kernel
-    fused = pmesh.sharded_fused_power(m, st)
-    assert fused.variant == "tchunk", fused.variant
-
-
-@pytest.mark.slow
-def test_sharded_fused_tchunk_executes_on_mesh(tiny_cfg, rng):
-    """EXECUTE the chunked-T kernel under shard_map (interpret mode): a
-    squeezed vmem budget forces the tchunk selection at the tiny shape,
-    so the per-shard t-chunk sweep + persistent beam accumulator actually
-    run on the 8-device mesh (the reference-shape code path at a
-    CPU-tractable size)."""
-    frames = np.stack([synth_frame(tiny_cfg, rng) for _ in range(4)])
-    tables = beamform.make_lerp_tables(tiny_cfg)
-    ref = np.asarray(beamform.steered_power(frames, tables))
-
-    m = pmesh.make_mesh(2, 4)
-    st = pmesh.shard_tables(tables, m)
-    fn = pmesh.sharded_fused_power(m, st, tile_d=8, chunk_b=2,
-                                   vmem_budget=64 * 1024)
-    assert fn.variant == "tchunk", fn.variant
-    got = np.asarray(fn(frames))
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-10)
 
 
 @pytest.mark.slow

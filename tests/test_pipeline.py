@@ -41,27 +41,20 @@ def test_put_drop_oldest():
 
 
 def _backend_kinds(t):
-    """One instance of every kind _select_power_backend can return
-    (built CPU-side: the Pallas wrappers auto-interpret off-TPU)."""
-    from zybo_rt_sampler_image_detection_tpu.ops import (
-        equiv_kernel, freq_equiv)
-    from zybo_rt_sampler_image_detection_tpu.ops.pallas_kernels import (
-        FusedBeamformer,
-    )
+    """One instance of every kind _select_power_backend can return."""
+    from zybo_rt_sampler_image_detection_tpu.ops import freq_equiv
     return [
-        ("equiv_kernel", equiv_kernel.FusedEquivBeamformer(t, mode="f32")),
         ("freq_equiv", freq_equiv.make_equiv_tables(t)),
-        ("fused", FusedBeamformer(t)),
         ("xla", None),
     ]
 
 
 def test_default_power_fn_single_frame_every_backend(tiny_cfg, rng,
                                                      monkeypatch):
-    """Round-3 review regression: the production policy may hand ANY
-    backend kind to the single-frame live loop (HeatmapProducer warms up
-    on a 2-D zeros frame), so every kind must accept (M, N) frames and
-    (B, M, N) batches — the equiv kernel's raw ``_call`` did not."""
+    """The production policy may hand ANY backend kind to the
+    single-frame live loop (HeatmapProducer warms up on a 2-D zeros
+    frame), so every kind must accept (M, N) frames and (B, M, N)
+    batches."""
     from conftest import synth_frame
 
     from zybo_rt_sampler_image_detection_tpu.apps import pipeline
@@ -283,7 +276,7 @@ def test_web_adaptive_sound_route():
 
     cfg = zrt.Config.tiny().replace(udp_port=21932)
     # wide replay window — MVDR bring-up (freq tables + warmup compiles)
-    # can take seconds on a loaded 1-core host
+    # can take seconds on a loaded host
     frames = _source_frames(cfg, 4, 3, n=3000)
     streamer.stream_in_background(cfg, frames, n_arrays=1, delay=0.5,
                                   exact_reference=False,
@@ -516,7 +509,7 @@ def test_web_mvdr_backend():
     cfg = zrt.Config.tiny().replace(udp_port=21926)
     # wide replay window: the route's bring-up (pipeline + freq tables +
     # first-jax-touch + native engine load) can take ~1 s on a loaded
-    # 1-core host, and the receiver only connects once packets overlap it
+    # host, and the receiver only connects once packets overlap it
     frames = _source_frames(cfg, 4, 3, n=3000)
     streamer.stream_in_background(cfg, frames, n_arrays=1, delay=0.5,
                                   exact_reference=False,
@@ -582,9 +575,8 @@ def test_web_metrics_and_hardened_routes():
 
 
 def test_batched_stage_anchors_at_stream_start():
-    """A batched consumer whose loop starts long after connect (the
-    remote compile service can hold warmup() for minutes while packets
-    flow) must anchor its counter-contiguous stream at the CURRENT
+    """A batched consumer whose loop starts long after connect (a long
+    compile can hold warmup() while packets flow) must anchor its counter-contiguous stream at the CURRENT
     published counter: frames published pre-start predate the stream
     and must not be zero-filled in as "underruns" (regression: the
     fused listen demo recorded ~31k fake underruns after a 129 s

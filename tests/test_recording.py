@@ -12,7 +12,7 @@ def test_npy_recording(tmp_path):
     cfg = zrt.Config.tiny().replace(udp_port=21906)
     rng = np.random.default_rng(7)
     # 12 distinct frames cycled for a long window: a 0.2-0.3 s host stall
-    # (documented on this 1-vCPU harness) must not let the stream end
+    # on a loaded host must not let the stream end
     # before the recorder has read its 3 frames
     frames = [(rng.standard_normal((cfg.n_microphones, cfg.n_samples)) * 0.1
                ).astype(np.float32) for _ in range(12)] * 40

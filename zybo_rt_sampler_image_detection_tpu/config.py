@@ -42,6 +42,17 @@ REFERENCE_DEAD_MICS: Tuple[int, ...] = (
 )
 
 
+# The precision tiers of the heatmap path, as Config overrides.  On an
+# H100 "highest" runs full f32 products, "high" runs f32 operands as TF32
+# and "bf16" keeps bf16 steering tables (bf16 products on the time-domain
+# path, TF32 planes built from the bf16 taps on the frequency-domain one).
+TIERS = {
+    "highest": dict(matmul_precision="highest"),
+    "high": dict(matmul_precision="high"),
+    "bf16": dict(matmul_precision="default", matmul_dtype="bfloat16"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """All tunables of the acoustic-camera pipeline.
@@ -119,10 +130,10 @@ class Config:
 
     # --- compute ---
     dtype: str = "float32"            # accumulation dtype on device
-    matmul_dtype: str = "float32"     # W/Sdel dtype fed to the MXU
-    # MXU pass count for f32 operands: "highest" = 6-pass (bit-level f32,
-    # used by the exactness gates), "high" = 3-pass (~1e-7 rel error, 2x
-    # faster), "default" = single bf16 pass (~2e-3 rel error, ~6x faster).
+    matmul_dtype: str = "float32"     # steering-table (W) dtype
+    # lax.Precision of the steering contractions: "highest" = full f32
+    # products (the bit-level exactness gates); "high"/"default" let the
+    # GPU run f32 operands as TF32.  See TIERS for the named tiers.
     matmul_precision: str = "highest"
 
     # ------------------------------------------------------------------
@@ -191,7 +202,7 @@ class Config:
     @classmethod
     def northstar(cls) -> "Config":
         """The benchmark config: one 8x8 board (64 ch), 65x65 steering grid
-        (see /root/repo/BASELINE.json)."""
+        (see BASELINE.json)."""
         return cls(
             n_microphones=64,
             active_arrays=1,

@@ -1,6 +1,6 @@
-// Native UDP ingest engine for the TPU-VM host.
+// Native UDP ingest engine for the accelerator host.
 //
-// TPU-native replacement for the reference's fork()'d C receiver child +
+// Replacement for the reference's fork()'d C receiver child +
 // SysV shared-memory ring + semaphores (PC/src/api.c:679-939,
 // PC/src/receiver.c): one receive thread parses protocol-v2 datagrams,
 // un-serpentines and normalizes into a double-buffered latest-frame slot
@@ -78,9 +78,9 @@ void build_perm() {
                        g.exact_serpentine);
 }
 
-// Real-time priority for the packet threads: on a 1-core host the JAX
-// plugin's transfer serialization can starve them for hundreds of ms,
-// overflowing the socket buffer.  SCHED_FIFO (needs root / CAP_SYS_NICE;
+// Real-time priority for the packet threads: on a busy host the JAX
+// runtime's threads can starve them for hundreds of ms, overflowing the
+// socket buffer.  SCHED_FIFO (needs root / CAP_SYS_NICE;
 // silently skipped otherwise) preempts that work the moment a packet or
 // pacing deadline arrives.  Both threads block constantly (recv /
 // clock_nanosleep), so they cannot monopolize the core.

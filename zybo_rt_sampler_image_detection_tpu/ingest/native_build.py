@@ -1,9 +1,9 @@
 """Build + ctypes binding for the native C++ ingest engine.
 
 Compiled on first use with g++ (no pybind11 in the image; plain C ABI via
-ctypes).  The shared object is cached under ``~/.cache/zrt_native``
+ctypes).  The shared object is cached under ``<checkout>/.cache/native``
 (override with ``ZRT_NATIVE_CACHE_DIR``) and rebuilt when the source
-changes — the build artifact never lives in the source tree.
+changes.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import threading
 from typing import Optional
 
 import numpy as np
+
+from .. import paths
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "native", "ingest.cpp")
@@ -31,8 +33,8 @@ def _so_path() -> str:
 
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    cdir = os.environ.get("ZRT_NATIVE_CACHE_DIR",
-                          os.path.expanduser("~/.cache/zrt_native"))
+    cdir = (os.environ.get("ZRT_NATIVE_CACHE_DIR")
+            or paths.cache_dir("native"))
     return os.path.join(cdir, f"libzrtingest-{digest}.so")
 
 

@@ -344,8 +344,8 @@ class Receiver:
         """Newest published ring counter (0 before the first frame).
 
         Stream-start anchor for batched consumers: a stage whose loop
-        begins long after :meth:`connect` (the remote compile service
-        can hold ``warmup()`` for minutes while packets flow) must start
+        begins long after :meth:`connect` (``warmup()`` compiles while
+        packets flow) must start
         its counter-contiguous stream HERE, not at counter 1 —
         otherwise every frame published during compile is zero-filled
         into the audio stream as a fake "underrun"."""
@@ -364,7 +364,7 @@ class Receiver:
         holds — everything available is consumed (the hermetic tests
         publish a finite stream before the loop starts and expect every
         frame), while a long pre-start backlog (e.g. frames published
-        during a minutes-long remote compile in ``warmup()``) beyond the
+        during a long compile in ``warmup()``) beyond the
         ring is NOT zero-filled in as fake "underruns".  A low-latency
         consumer that prefers to drop the resident backlog too can
         anchor at ``published_seq + 1`` instead (none do today: the

@@ -109,9 +109,9 @@ class Streamer:
 class NativeStreamer:
     """C++ packet emulator (``ingest/native/ingest.cpp`` emulate_*):
     prebuilds one signal cycle of datagrams and streams them at the exact
-    line rate from a native thread — a few percent of a core, vs ~93% for
-    the Python generator at 48,828 pkt/s.  Required on this 1-core host to
-    emulate the FPGA while the same machine ingests and feeds the TPU.
+    line rate from a native thread — a few percent of a core at 48,828
+    pkt/s, where the Python generator takes most of one — so one machine
+    can emulate the FPGA while it ingests and feeds the accelerator.
 
     One emulator per process (engine singleton, like the receiver)."""
 

@@ -99,8 +99,8 @@ class SceneCamera:
 
     ``prerender`` > 0 renders that many frames up front and serves them
     cyclically: ``read()`` becomes a list index — the paint cost (~3 ms
-    of numpy per 240x320 frame) stops competing for the 1-vCPU host's
-    GIL with the realtime pipeline threads.  That is also the
+    of numpy per 240x320 frame) stops competing for the GIL with the
+    realtime pipeline threads.  That is also the
     reference-faithful cost model: a webcam read is a V4L2 buffer
     memcpy, not a per-frame software paint.  (1260 = lcm of the two
     Lissajous periods, so the cycle is seamless.)"""

@@ -1,14 +1,18 @@
-"""Tiny-YOLO detector in Flax — the TPU-native replacement for the
-reference's Ultralytics dependency (``image-detection/src/
-yolo_smooth_tracking.py:9-23`` wraps ``YOLO(model.pt)``; the custom weights
-blob is absent from the repo, ``.MISSING_LARGE_BLOBS``).
+"""Tiny-YOLO detector in plain JAX — the replacement for the reference's
+Ultralytics dependency (``image-detection/src/yolo_smooth_tracking.py:9-23``
+wraps ``YOLO(model.pt)``; the custom weights blob is absent from the repo,
+``.MISSING_LARGE_BLOBS``).
 
 Architecture: a YOLOv3-tiny-shaped anchor-based single-stage detector —
 conv/BN/leaky backbone to /32 with a /16 skip, two detection heads with 3
 anchors each.  Everything (backbone, box decode, NMS) runs on device in one
 jit; the host only sees the final (max_det, 6) table.
 
-bfloat16-friendly: convs run in the param dtype, losses/decodes in f32.
+The network is a pure function of a variables pytree
+``{"params": ..., "batch_stats": ...}`` (:class:`TinyYolo`'s ``init`` /
+``apply``): convolutions are ``lax.conv_general_dilated``, batch norm keeps
+running statistics in ``batch_stats`` and updates them only in train mode.
+Convs run in ``YoloConfig.dtype``; batch norm, losses and decodes in f32.
 """
 
 from __future__ import annotations
@@ -16,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,9 @@ DEFAULT_ANCHORS = (
     ((81, 82), (135, 169), (344, 319)),     # stride 32
     ((10, 14), (23, 27), (37, 58)),         # stride 16
 )
+
+BN_MOMENTUM = 0.97
+BN_EPS = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,61 +52,123 @@ class YoloConfig:
         return 5 + self.num_classes
 
 
-class ConvBlock(nn.Module):
-    features: int
-    kernel: int = 3
-    stride: int = 1
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        x = nn.Conv(self.features, (self.kernel, self.kernel),
-                    strides=(self.stride, self.stride), padding="SAME",
-                    use_bias=False, dtype=self.dtype)(x)
-        x = nn.BatchNorm(use_running_average=not train, momentum=0.97,
-                         dtype=jnp.float32)(x)
-        return nn.leaky_relu(x, 0.1)
+def _conv(x, kernel, dtype):
+    return jax.lax.conv_general_dilated(
+        x.astype(dtype), kernel.astype(dtype), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
 
 
-class TinyYolo(nn.Module):
+def _max_pool2(x):
+    return jax.lax.reduce_window(x, -jnp.inf, jax.lax.max,
+                                 (1, 2, 2, 1), (1, 2, 2, 1), "VALID")
+
+
+def _upsample2(x):
+    return jnp.repeat(jnp.repeat(x, 2, axis=1), 2, axis=2)
+
+
+class TinyYolo:
     """Backbone + 2-scale detection heads.
 
-    Returns raw head outputs: list of (B, H, W, A*(5+C)).
+    ``apply`` returns raw head outputs: list of (B, H, W, A*(5+C)).
     """
 
-    cfg: YoloConfig
+    def __init__(self, cfg: YoloConfig):
+        self.cfg = cfg
+        w = lambda f: max(8, int(f * cfg.width_mult))      # noqa: E731
+        # conv/BN/leaky blocks: name -> (in channels, out channels, kernel)
+        self.blocks = {
+            "block0": (3, w(16), 3),
+            "block1": (w(16), w(32), 3),
+            "block2": (w(32), w(64), 3),
+            "block3": (w(64), w(128), 3),
+            "block4": (w(128), w(256), 3),      # /16 skip
+            "block5": (w(256), w(512), 3),
+            "block6": (w(512), w(256), 1),
+            "block7": (w(256), w(512), 3),      # /32 head trunk
+            "block8": (w(256), w(128), 1),      # upsample branch
+            "block9": (w(128) + w(256), w(256), 3),   # /16 head trunk
+        }
+        n_out = len(cfg.anchors[0]) * cfg.out_per_anchor
+        # 1x1 detection convs with bias: name -> (in channels, out channels)
+        self.heads = {"head32": (w(512), n_out), "head16": (w(256), n_out)}
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        c = self.cfg
-        w = lambda f: max(8, int(f * c.width_mult))
-        # /1 -> /32 backbone (maxpool downsampling like yolov3-tiny)
-        x = ConvBlock(w(16), dtype=c.dtype)(x, train)
-        x = nn.max_pool(x, (2, 2), (2, 2))                        # /2
-        x = ConvBlock(w(32), dtype=c.dtype)(x, train)
-        x = nn.max_pool(x, (2, 2), (2, 2))                        # /4
-        x = ConvBlock(w(64), dtype=c.dtype)(x, train)
-        x = nn.max_pool(x, (2, 2), (2, 2))                        # /8
-        x = ConvBlock(w(128), dtype=c.dtype)(x, train)
-        x = nn.max_pool(x, (2, 2), (2, 2))                        # /16
-        x16 = ConvBlock(w(256), dtype=c.dtype)(x, train)
-        x = nn.max_pool(x16, (2, 2), (2, 2))                      # /32
-        x = ConvBlock(w(512), dtype=c.dtype)(x, train)
-        x = ConvBlock(w(256), kernel=1, dtype=c.dtype)(x, train)
+    def init(self, rng: jax.Array) -> dict:
+        """Fresh variables: LeCun-normal conv kernels, zero biases, unit
+        BN scale, running mean 0 and variance 1."""
+        params, stats = {}, {}
+        keys = jax.random.split(rng, len(self.blocks) + len(self.heads))
+        for key, (name, (cin, cout, k)) in zip(keys, self.blocks.items()):
+            params[name] = {
+                "kernel": _lecun_normal(key, (k, k, cin, cout)),
+                "scale": jnp.ones((cout,), jnp.float32),
+                "bias": jnp.zeros((cout,), jnp.float32),
+            }
+            stats[name] = {"mean": jnp.zeros((cout,), jnp.float32),
+                           "var": jnp.ones((cout,), jnp.float32)}
+        for key, (name, (cin, cout)) in zip(keys[len(self.blocks):],
+                                            self.heads.items()):
+            params[name] = {"kernel": _lecun_normal(key, (1, 1, cin, cout)),
+                            "bias": jnp.zeros((cout,), jnp.float32)}
+        return {"params": params, "batch_stats": stats}
 
-        n_anchor = len(c.anchors[0])
-        out32 = ConvBlock(w(512), dtype=c.dtype)(x, train)
-        out32 = nn.Conv(n_anchor * c.out_per_anchor, (1, 1),
-                        dtype=c.dtype)(out32)
+    def apply(self, variables: dict, x, train: bool = False,
+              mutable: Sequence[str] = ()):
+        """Forward pass.  With ``train=True`` batch norm normalises by the
+        batch statistics and folds them into the running ones; pass
+        ``mutable=["batch_stats"]`` to get ``(heads, {"batch_stats": new})``
+        back, as the training step does."""
+        p, s = variables["params"], variables["batch_stats"]
+        dt = self.cfg.dtype
+        new_stats = {}
 
-        up = ConvBlock(w(128), kernel=1, dtype=c.dtype)(x, train)
-        up = jax.image.resize(up, (up.shape[0], up.shape[1] * 2,
-                                   up.shape[2] * 2, up.shape[3]), "nearest")
-        x16 = jnp.concatenate([up, x16], axis=-1)
-        out16 = ConvBlock(w(256), dtype=c.dtype)(x16, train)
-        out16 = nn.Conv(n_anchor * c.out_per_anchor, (1, 1),
-                        dtype=c.dtype)(out16)
-        return [out32, out16]
+        def block(name, x):
+            y = _conv(x, p[name]["kernel"], dt).astype(jnp.float32)
+            if train:
+                mean = jnp.mean(y, axis=(0, 1, 2))
+                var = jnp.maximum(
+                    jnp.mean(y * y, axis=(0, 1, 2)) - mean * mean, 0.0)
+                new_stats[name] = {
+                    "mean": BN_MOMENTUM * s[name]["mean"]
+                    + (1.0 - BN_MOMENTUM) * mean,
+                    "var": BN_MOMENTUM * s[name]["var"]
+                    + (1.0 - BN_MOMENTUM) * var,
+                }
+            else:
+                mean, var = s[name]["mean"], s[name]["var"]
+            y = (y - mean) * jax.lax.rsqrt(var + BN_EPS)
+            y = y * p[name]["scale"] + p[name]["bias"]
+            return jax.nn.leaky_relu(y, 0.1)
+
+        def head(name, x):
+            y = _conv(x, p[name]["kernel"], dt)
+            return y + p[name]["bias"].astype(y.dtype)
+
+        x = _max_pool2(block("block0", x))                          # /2
+        x = _max_pool2(block("block1", x))                          # /4
+        x = _max_pool2(block("block2", x))                          # /8
+        x = _max_pool2(block("block3", x))                          # /16
+        x16 = block("block4", x)
+        x = block("block6", block("block5", _max_pool2(x16)))       # /32
+        out32 = head("head32", block("block7", x))
+        up = _upsample2(block("block8", x))
+        out16 = head("head16",
+                     block("block9", jnp.concatenate([up, x16], axis=-1)))
+        heads = [out32, out16]
+        if "batch_stats" in mutable:
+            if not train:
+                new_stats = s
+            return heads, {"batch_stats": new_stats}
+        return heads
+
+
+def _lecun_normal(key, shape):
+    """Truncated normal with variance 1/fan_in (fan_in = kh*kw*cin)."""
+    fan_in = int(np.prod(shape[:-1]))
+    # 0.8796... is the std of a unit normal truncated to [-2, 2]
+    std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return std * jax.random.truncated_normal(key, -2.0, 2.0, shape,
+                                             jnp.float32)
 
 
 def decode_head(raw: jax.Array, anchors, stride: int,
@@ -141,6 +209,4 @@ def decode_all(cfg: YoloConfig, heads: Sequence[jax.Array]):
 
 def init_params(cfg: YoloConfig, rng: jax.Array):
     model = TinyYolo(cfg)
-    x = jnp.zeros((1, cfg.input_size, cfg.input_size, 3), jnp.float32)
-    variables = model.init(rng, x, train=False)
-    return model, variables
+    return model, model.init(rng)

@@ -1,5 +1,3 @@
-from . import (geometry, oracle, beamform, freq, freq_equiv, equiv_kernel,
-               kalman, pallas_kernels)
+from . import geometry, oracle, beamform, freq, freq_equiv, kalman
 
-__all__ = ["geometry", "oracle", "beamform", "freq", "freq_equiv",
-           "equiv_kernel", "kalman", "pallas_kernels"]
+__all__ = ["geometry", "oracle", "beamform", "freq", "freq_equiv", "kalman"]

@@ -5,9 +5,8 @@ The phase-shift path reproduces the reference web app's third backend
 rfft each mic, keep a frequency band, multiply by the precomputed steering
 tensor, and sum ``|sum_mics|^2`` over frequencies.
 
-TPU-native formulation: the ambient TPU backend implements no complex
-arithmetic, and on the MXU a DFT of a 256-sample frame *is* a small matmul
-anyway — so everything here is expressed over explicit (re, im) planes:
+Formulation: a DFT of a 256-sample frame is a small matmul, and every
+operation here is expressed over explicit (re, im) float32 planes:
 
 * rfft        -> two real matmuls against precomputed DFT bases;
 * steering    -> four real einsums (complex multiply expanded);
@@ -247,13 +246,13 @@ def _loaded(state: CovarianceState, diagonal_loading: float):
 def _solve_hermitian(R_re, R_im, b_re, b_im):
     """Solve the complex Hermitian-PD system R x = b.
 
-    This backend has no complex dtype, so R is carried as (re, im) planes
-    and the solve runs on the real 2Mx2M block isomorphism
+    R is carried as (re, im) planes and the solve runs on the real 2Mx2M
+    block isomorphism
     ``[[Re, -Im], [Im, Re]]`` — symmetric positive definite whenever R is
     Hermitian PD (the trace-scaled diagonal loading guarantees that), so a
-    **Cholesky** factorization + two triangular solves replace the general
-    LU used in round 1: half the flops, no pivoting, and the block form
-    costs the same real flops as a native complex Cholesky would.
+    **Cholesky** factorization + two triangular solves: half the flops of
+    an LU, no pivoting, and the block form costs the same real flops as a
+    native complex Cholesky would.
 
     R: (F, M, M) hermitian (R_re symmetric, R_im antisymmetric);
     b: (F, M, K).  Returns (x_re, x_im) each (F, M, K).
@@ -277,9 +276,9 @@ def _trtri_blocked(L: jax.Array, base: int = 64) -> jax.Array:
         inv([[A, 0], [B, C]]) = [[inv(A), 0], [-inv(C) B inv(A), inv(C)]]
 
     The XLA triangular-solve lowers to a panel loop whose serial depth
-    scales with n; restructuring as leaf-batch + matmul merges keeps the
-    MXU busy instead (the merge work is exactly the solve's flops,
-    reassociated).  This is LAPACK ``trtri``'s blocked recursion with the
+    scales with n; restructuring as leaf-batch + matmul merges turns the
+    work into batched matmuls instead (the merge work is exactly the
+    solve's flops, reassociated).  This is LAPACK ``trtri``'s blocked recursion with the
     independent diagonal subproblems batched into single dispatches.
     """
     F, n, _ = L.shape
@@ -318,28 +317,17 @@ def invert_hermitian(R_re: jax.Array, R_im: jax.Array,
     blocked triangular inversion (:func:`_trtri_blocked`), then one
     K=M syrk (the embedding inverse is ``[[P_re, -P_im], [P_im, P_re]]``
     so only its first M columns are needed).  Same cond(R)*eps error
-    class as the factor+solve path it replaces; the solve's panel-serial
-    triangular sweeps become one batched leaf solve + MXU merges.
-
-    Measured at the refresh shape (127 batched 512x512, chained
-    dispatch): factor+solve 22.8 ms -> potri 21.2 ms.  The remaining
-    wall is ``jnp.linalg.cholesky`` itself (15.8 ms of the 21.2): XLA's
-    batched factorization is a serial While loop with a ~4.4 ms floor
-    at ANY leaf size (64x64 costs 4.9 ms for 100x less work), so
-    factored designs using two half-size chols measure the same 15.5 ms
-    (two sequential custom calls).  Rejected alternatives, all measured:
+    class as a factor+solve; the solve's panel-serial triangular sweeps
+    become one batched leaf solve + matmul merges.  Rejected
+    alternatives:
 
     * complex-structure Schur reduction ``P_re = (X + Y X^-1 Y)^-1``
       (two M-size SPD inversions): forms ``X^-1`` explicitly, squaring
       the effective condition number — fails the coherent near-rank-1
       gate (test_mvdr_ill_conditioned_single_source) at resid 0.24 vs
       the factorization path's 9e-4;
-    * Newton-Schulz from the drifted P: diverges (round-3 negative
-      result — the refresh re-anchors the diagonal loading, so
-      ``norm(I - R P_drift) ~ 1``);
-    * per-bin-slice refresh across blocks: the chol is latency-bound,
-      not flop-bound, so an F-slice costs the SAME 15.8 ms — splitting
-      multiplies total refresh time by the slice count.
+    * Newton-Schulz from the drifted P: diverges — the refresh
+      re-anchors the diagonal loading, so ``norm(I - R P_drift) ~ 1``.
     """
     F, M, _ = R_re.shape
     top = jnp.concatenate([R_re, -R_im], axis=2)
@@ -347,7 +335,7 @@ def invert_hermitian(R_re: jax.Array, R_im: jax.Array,
     big = jnp.concatenate([top, bot], axis=1)          # (F, 2M, 2M) sym PD
     # the embedding is symmetric by construction (up to the estimator's
     # own einsum rounding) — skip cholesky's (A + A^T)/2 pre-pass, an
-    # extra HBM round over the 133 MB batch (measured 16.1 -> 14.8 ms)
+    # extra pass over the 133 MB batch
     L = jax.lax.linalg.cholesky(big, symmetrize_input=False)
     Li = _trtri_blocked(L, base)
     # Rinv[:, :M] = Li^T @ Li[:, :, :M].  NO Hermitian re-projection: the
@@ -362,18 +350,14 @@ def invert_hermitian(R_re: jax.Array, R_im: jax.Array,
     return cols[:, :M, :], cols[:, M:, :]
 
 
-# -- unrolled complex potri (round 5) ---------------------------------------
+# -- unrolled complex potri -------------------------------------------------
 #
-# The round-4 refresh wall was jnp.linalg.cholesky itself: XLA's batched
-# factorization is a serial While loop with a measured ~4.4 ms floor at
-# ANY size (BENCHMARKS.md round-4 ladder; 64x64 costs 4.9 ms for 100x
-# less work), so every blocked design built ON the custom call pays the
-# floor per call.  This path removes the loop entirely: a recursive
-# blocked Cholesky + triangular inverse whose leaves are STATICALLY
-# UNROLLED rank-1 / forward-substitution steps (ordinary fused VPU ops,
-# microsecond-scale each) and whose merges are MXU matmuls.  It works
-# directly on the complex (re, im) planes — half the sequential depth
-# (M steps, not 2M) and the same real FLOPs as the 2Mx2M embedding.
+# A recursive blocked Cholesky + triangular inverse whose leaves are
+# STATICALLY UNROLLED rank-1 / forward-substitution steps (ordinary fused
+# elementwise ops) and whose merges are matmuls: no XLA While loop and no
+# factorization custom call.  It works directly on the complex (re, im)
+# planes — half the sequential depth (M steps, not 2M) and the same real
+# FLOPs as the 2Mx2M embedding.
 
 
 def _cmm(ar, ai, br, bi, prec=_HI):
@@ -449,8 +433,8 @@ def _chol_inv_blocked_c(Ar, Ai, leaf: int = 32):
         L22, T22 = rec(A22 - L21 L21^H)
         T = [[T11, 0], [-T22 L21 T11, T22]]
 
-    Leaves are unrolled (no XLA While); merges are MXU matmuls at
-    HIGHEST precision.  Same cond*eps class as the embedding potri path
+    Leaves are unrolled (no XLA While); merges are matmuls at HIGHEST
+    precision.  Same cond*eps class as the embedding potri path
     (gated by the rank-refresh and ill-conditioned tests).
     """
     n = Ar.shape[-1]
@@ -494,10 +478,9 @@ def invert_hermitian_unrolled(R_re: jax.Array, R_im: jax.Array,
     complex potri with statically-unrolled leaves (see
     :func:`_chol_inv_blocked_c`), then ``P = T^H T``.
 
-    This replaces :func:`invert_hermitian` (the 2Mx2M embedding whose
-    ``jnp.linalg.cholesky`` call alone measured 15.8 ms with a ~4.4 ms
-    serial-While floor) on the production refresh path; the embedding
-    path remains as the reference implementation and fallback.
+    The production refresh path; :func:`invert_hermitian` (the 2Mx2M
+    embedding through ``jax.lax.linalg.cholesky``) remains as the
+    reference implementation.
     """
     _, _, Tr, Ti = _chol_inv_blocked_c(R_re, R_im, leaf)
     thr, thi = _ct(Tr, Ti)
@@ -514,31 +497,28 @@ def mvdr_power(state: CovarianceState, t: FreqTables,
     vector is ``a = conj(P)``.  Diagonal loading scales with tr(R)/M per
     bin — the standard robustifier for a streaming estimate.
 
-    TPU shape: triangular solves are slow on this hardware but the
-    direction axis (D = 1824 at the reference grid) is huge, so instead of
-    solving ``R x = a_d`` per direction we Cholesky-invert each bin's R
-    once (O(M^3), small) and evaluate ``a^H R^{-1} a`` for ALL directions
-    as two dense matmuls — MXU work that scales with the grid.
+    The direction axis (D = 1824 at the reference grid) is huge, so
+    instead of solving ``R x = a_d`` per direction each bin's R is
+    inverted once (O(M^3), small) and ``a^H R^{-1} a`` is evaluated for
+    ALL directions as two dense matmuls.
 
     ``grid_precision`` controls those two grid matmuls only (the Cholesky/
-    inverse stays f32): "highest" for the exactness gates, "high" (~1e-7
-    rel) as the production point, "default" (bf16, ~1e-2 rel) when the map
-    feeds display/detection only.
+    inverse stays f32): "highest" for the exactness gates, "high" as the
+    production point (TF32 on a GPU), "default" when the map feeds
+    display/detection only.
     """
     prec = {"highest": jax.lax.Precision.HIGHEST,
             "high": jax.lax.Precision.HIGH,
             "default": jax.lax.Precision.DEFAULT}[grid_precision]
     R_re, R_im = _loaded(state, diagonal_loading)
-    # R^{-1} via the complex-structure block-Schur inversion (MXU
-    # matmuls; see invert_hermitian) — the 2Mx2M factor+solve it
-    # replaces was the panel-latency-bound tail of this evaluation
+    # R^{-1} via the potri-style inversion (see invert_hermitian)
     Pr, Pi = invert_hermitian(R_re, R_im)
     top = jnp.concatenate([Pr, -Pi], axis=2)
     bot = jnp.concatenate([Pi, Pr], axis=2)
     Rinv = jnp.concatenate([top, bot], axis=1)         # (F, 2M, 2M)
     # block-real steering vectors: a = conj(P)  =>  [a_re; a_im]
     a = jnp.concatenate([t.phase_re, -t.phase_im], axis=1)   # (F, 2M, D)
-    # denom_d = a_d^T Rinv a_d  — batched matmul + reduce on the MXU
+    # denom_d = a_d^T Rinv a_d  — batched matmul + reduce
     Ra = jnp.einsum("fmn,fnd->fmd", Rinv, a, precision=prec)
     denom = jnp.einsum("fmd,fmd->fd", a, Ra, precision=prec)
     denom = jnp.maximum(denom, 1e-12)
@@ -552,8 +532,7 @@ def mvdr_power(state: CovarianceState, t: FreqTables,
 #
 # The EMA update R <- alpha R + (1-alpha) s s^H is rank-1, so the INVERSE
 # admits a closed-form Sherman-Morrison update costing O(F M^2) per frame —
-# no per-frame Cholesky (O(F M^3), ~20 ms at the reference shape, the round-1
-# bottleneck).  This is the classic RLS recursion with forgetting factor
+# no per-frame O(F M^3) factorization.  This is the classic RLS recursion with forgetting factor
 # alpha; f32 drift is bounded by a periodic exact refresh (refresh_precision)
 # from the co-tracked covariance.
 
@@ -659,16 +638,16 @@ def update_precision_block(state: PrecisionState, signals: jax.Array,
     """Exact rank-B (Woodbury) equivalent of scanning
     :func:`update_precision` over a B-frame batch.
 
-    The per-frame Sherman-Morrison recursion is HBM-bound: every frame
-    reads+writes the whole (F, M, M) precision (and covariance) state —
-    ~3 ms/frame at the reference shape for only ~30 MFLOP of math.  B
-    sequential rank-1 updates equal ONE rank-B update::
+    The per-frame Sherman-Morrison recursion is memory-bound: every frame
+    reads+writes the whole (F, M, M) precision (and covariance) state for
+    only ~30 MFLOP of math at the reference shape.  B sequential rank-1
+    updates equal ONE rank-B update::
 
         R_B = a^B R_0 + U U^H,   U[f] = [sqrt((1-a) a^{B-1-i}) s_i]
         P_B = (P_0 - V (a^B I + U^H V)^{-1} V^H) / a^B,   V = P_0 U
 
     so the state streams once per B frames and the extra math is batched
-    (F, M, B)/(F, B, B) matmuls — MXU work.  Bit-for-bit this matches the
+    (F, M, B)/(F, B, B) matmuls.  Bit-for-bit this matches the
     scan up to f32 reassociation (gated in tests at 1e-4); the covariance
     co-estimate uses the same U (with the sequential recursion's
     first-ever-frame replacement reproduced exactly).
@@ -765,19 +744,18 @@ def mvdr_maps_scan(state: PrecisionState, signals: jax.Array,
     for B=64, matching the sequential loop up to f32 reassociation (the
     recursion reorders ops; gated at 1e-3 in tests).
 
-    Round-3 refinement: the (F, D, B) tensor ``Y_t = a^H P_t S`` never
+    The (F, D, B) tensor ``Y_t = a^H P_t S`` never
     enters the scan at all.  Each step's update is rank-1 —
     ``Y_t = (Y_{t-1} - kappa_t m_t r_t)/alpha`` with ``m_t`` a COLUMN of
     ``Y_{t-1}`` — so ``Y_t = Y_0 A_t`` for a small per-bin coefficient
     matrix with the closed recursion ``A_t = (A_{t-1} - kappa_t
     A_{t-1}e_t r_t)/alpha`` living entirely in (F, B, B).  The scan
     carries only A and the snapshot Gram tensor y (~KB-scale at the
-    reference shape vs ~250 MB with Y in the carry — the old scan
-    streamed ~16 GB of HBM per 64-frame block and was traffic-bound),
-    then ONE batched matmul ``M = Y_0 A`` recovers every frame's
+    reference shape vs ~250 MB with Y in the carry), then ONE batched
+    matmul ``M = Y_0 A`` recovers every frame's
     ``m_t``, and the d-recursion unrolls to a weighted running sum
     ``d_t = (d_0 - sum_{s<=t} alpha^s kappa_s |m_s|^2) / alpha^{t+1}``
-    computed as a triangular matmul (single HBM pass).
+    computed as a triangular matmul (single pass over memory).
 
     Coefficient depth is CHUNKED at 16 frames: A's entries grow like
     ``alpha^-t`` and frame t's ``m_t`` is a depth-t signed combination of
@@ -884,7 +862,7 @@ def mvdr_maps_scan(state: PrecisionState, signals: jax.Array,
               + jnp.einsum("fdb,fbt->fdt", Y_im, Ac_re, precision=_HI))
         steps = jnp.arange(Bc, dtype=jnp.float32)
         qw = (Mr * Mr + Mi * Mi) * (kap * alpha ** steps)[:, None, :]
-        # running sum_{s<=t} as a triangular matmul: one HBM pass
+        # running sum_{s<=t} as a triangular matmul: one memory pass
         # (cumsum lowers to log-depth passes over the (F, D, Bc) tensor)
         tril = jnp.tril(jnp.ones((Bc, Bc), jnp.float32)).T  # (s,t): s<=t
         cum = jnp.einsum("fds,st->fdt", qw, tril, precision=_HI)
@@ -926,9 +904,9 @@ def mvdr_maps_scan(state: PrecisionState, signals: jax.Array,
     if nc >= 2 and rem == 0:
         # uniform chunks: ONE chunk body in the HLO via lax.scan — a
         # B=64 call otherwise unrolls 4 copies of ~25 reference-shape
-        # einsums + an inner scan (compile-time hazard on the remote
-        # service).  The final chunk's anchor is computed inside the
-        # scan either way (needed when return_d).
+        # einsums + an inner scan (compile time).  The final chunk's
+        # anchor is computed inside the scan either way (needed when
+        # return_d).
         sr_ch = sr.reshape(nc, CHUNK, F, -1)
         si_ch = si.reshape(nc, CHUNK, F, -1)
         (st, d), maps_all = jax.lax.scan(chunk_body, (state, d),
@@ -957,21 +935,10 @@ def mvdr_maps_scan_refresh(state: PrecisionState, signals: jax.Array,
                            grid_precision: str = "high",
                            d0: Optional[jax.Array] = None):
     """Epoch-closing block scan with the exact refresh FOLDED INTO the
-    same device program — the round-4 verdict's overlap move,
-    implemented and **measured NEGATIVE** (kept as the recorded
-    artifact; production uses the separate-refresh cadence).
-
-    Measured 2026-08-20, reference shape, 64-frame epochs with the
-    unrolled-potri factorization in BOTH variants: separate refresh
-    1,978.4 maps/s (spread 0.042) vs this fused variant 1,769.5
-    (spread 0.062).  Why it loses on one core: TPU programs execute on
-    a single serialized schedule, so "overlapping" the factorization
-    with the scan saves nothing, while correcting the pre-block
-    refresh for the block costs a genuinely EXTRA rank-B Woodbury
-    update of P (~3.8 ms/epoch) on top of the scan's own chunk
-    advance.  The real round-5 refresh win was orthogonal:
-    :func:`invert_hermitian_unrolled` (21.9 -> 8.5 ms), which lifted
-    the production epoch 1,403 -> 1,978 maps/s.
+    same device program.  Production uses the separate-refresh cadence
+    (``apps.pipeline.make_mvdr_stream``): correcting the pre-block
+    refresh for the block costs an EXTRA rank-B Woodbury update of P on
+    top of the scan's own chunk advance.
 
     Semantics: the refresh inverts the PRE-block covariance (no data
     dependence on the scan) and the fresh P advances by the block's
@@ -1040,20 +1007,9 @@ def refresh_precision(state: PrecisionState, t: FreqTables) -> PrecisionState:
     """Exact re-factorization of P from the co-tracked covariance — run
     every :func:`refresh_interval` frames to bound f32 recursion drift.
 
-    Round 4: the 2Mx2M Cholesky + K=M triangular solves measured 22.8 ms
-    at the reference shape — 40%% of the production epoch, panel-latency
-    bound at ~2 TFLOP/s.  :func:`invert_hermitian` (potri-style:
-    blocked-batched trtri + half-width syrk after the one Cholesky)
-    computes the same inverse in the same cond*eps error class with the
-    post-factor work on the MXU; see its docstring for the measured
-    ladder and the rejected alternatives.
-
-    Round 5: the production refresh uses
-    :func:`invert_hermitian_unrolled` — the 15.8 ms wall was
-    ``jnp.linalg.cholesky``'s serial While loop itself, and the
-    unrolled complex potri removes it (measured 21.9 -> 8.5 ms at the
-    refresh shape, max |dP| 1.9e-6 on a P scale of 1.2 vs the
-    embedding path)."""
+    Uses :func:`invert_hermitian_unrolled` (unrolled complex potri, no
+    XLA While loop); :func:`invert_hermitian` is the embedding-based
+    reference it is gated against."""
     R_re, R_im = _loaded(state.cov, state.load)
     P_re, P_im = invert_hermitian_unrolled(R_re, R_im)
     return PrecisionState(P_re=P_re, P_im=P_im, cov=state.cov,

@@ -11,7 +11,7 @@ with the per-(d, m) frequency response
     H[d, m, f] = sum_t W[d, t, m] * exp(-j w_f (tau_min + t))
 
 the steered spectrum is ``B[d, f] = sum_m H[d, m, f] S[m, f]`` — a
-(D, M) x (M, F) contraction per bin, ~15x fewer MACs at the reference
+(D, M) x (M, F) contraction per bin, ~20x fewer MACs at the reference
 shape.  Three correction terms make the power EXACTLY the C output
 (not an approximation):
 
@@ -58,9 +58,8 @@ class EquivFreqTables:
     The complex response is stored STACKED along the mic axis —
     ``Hs1 = [H_re | -H_im]`` and ``Hs2 = [H_im | H_re]``, both
     (D, 2M, F) — so the steered spectrum is two real einsums over the
-    concatenated ``[sr; si]`` spectra instead of four over M
-    (measured +10% end to end at the reference shape; the complex
-    multiply's four products collapse into two MXU contractions of
+    concatenated ``[sr; si]`` spectra instead of four over M (the
+    complex multiply's four products collapse into two contractions of
     K=2M).  The tail/head inverse-DFT bases are fused into one
     (F, Ttail+Tc) basis pair for the same reason."""
 
@@ -113,7 +112,7 @@ def _build_H(W: jax.Array, tau_min: int, L: int):
 def equiv_dims(t: SteeringTables) -> tuple:
     """``(L, F)`` — the padded-window length and rfft bin count
     :func:`make_equiv_tables` will use.  The pipeline's backend-selection
-    bars (MAC ratio, response-plane HBM cap) predict table sizes from
+    bars (MAC ratio, response-plane memory cap) predict table sizes from
     these, so they must come from the same derivation."""
     D, T, M = t.W.shape
     # L covers every positive shift's spill AND wraps negative shifts'
@@ -172,7 +171,7 @@ def equiv_power_flat(signals: jax.Array, t: EquivFreqTables) -> jax.Array:
 
     The direction axis stays flat so a model-sharded caller
     (``parallel.mesh.sharded_equiv_power``) can slice padding off before
-    the (X, Y) reshape; :func:`equiv_steered_power` is the single-chip
+    the (X, Y) reshape; :func:`equiv_steered_power` is the single-device
     wrapper."""
     prec = _PREC[t.precision]
     M = t.n_mics
@@ -210,7 +209,7 @@ def equiv_power_flat(signals: jax.Array, t: EquivFreqTables) -> jax.Array:
 def equiv_steered_power(signals: jax.Array, t: EquivFreqTables) -> jax.Array:
     """EXACT time-domain-equivalent steered power, (B, X, Y) or (X, Y):
     matches ``beamform.steered_power`` bit-comparably (f32 reassociation
-    tolerance) at ~15x fewer MACs at the reference shape."""
+    tolerance) at ~20x fewer MACs at the reference shape."""
     squeeze = signals.ndim == 2
     if squeeze:
         signals = signals[None]

@@ -6,13 +6,13 @@ compute axes shard over a ``jax.sharding.Mesh``:
 
 * ``data``  — the frame batch (pure DP; frames are independent);
 * ``model`` — the steering-direction axis of the delay-line weight matrix
-  (the tensor-parallel analog: W's D rows split across chips, each chip
+  (the tensor-parallel analog: W's D rows split across devices, each one
   produces its slice of the heatmap, and XLA inserts the all-gather that
   assembles the full image at the output sharding boundary).
 
-Both shardings ride ICI via collectives the SPMD partitioner inserts; DCN
-is never needed for a single-host array.  The same mesh carries the YOLO
-training step (DP over images + grad psum) in ``models/train.py``.
+Both shardings ride collectives the SPMD partitioner inserts.  The same
+mesh carries the YOLO training step (DP over images + grad psum) in
+``models/train.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import beamform
 from ..ops.beamform import SteeringTables
-from ..ops.pallas_kernels import _round_up
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -87,9 +86,7 @@ def sharded_steered_power(mesh: Mesh, t: SteeringTables):
 
     # tables enter the jit as ARGUMENTS (their committed shardings drive
     # the SPMD partitioning); closing over them would bake the ~70 MB
-    # reference-shape W into the compile request — the known
-    # minutes-long-compile failure mode (see pallas_kernels
-    # FusedBeamformer / CLAUDE.md)
+    # reference-shape W into the program as a constant
     @jax.jit
     def run(frames, t):
         beams = beamform.steered_beams(frames, t)          # (B, Dp, N)
@@ -100,84 +97,6 @@ def sharded_steered_power(mesh: Mesh, t: SteeringTables):
     return lambda frames: run(jax.device_put(frames, data), t)
 
 
-def sharded_fused_power(mesh: Mesh, t: SteeringTables, tile_d: int = 256,
-                        chunk_b: Optional[int] = None,
-                        interpret: Optional[bool] = None,
-                        vmem_budget: int = 28 * 1024 * 1024):
-    """Multi-chip fused path: each device runs the Pallas steered-power
-    kernel on its (data shard of frames) x (model shard of directions);
-    XLA gathers the (B, X, Y) map at the output boundary.
-
-    ``t`` must come from :func:`shard_tables` (direction axis padded to a
-    model-axis multiple).  Returns ``fn(frames) -> (B, X, Y)``.
-    """
-    from jax import shard_map
-
-    from ..ops import pallas_kernels as pk
-
-    n_model = mesh.shape["model"]
-    DP_total, T, M = t.W.shape
-    assert DP_total % n_model == 0
-    D_loc = DP_total // n_model
-    D_true = t.res_x * t.res_y
-    if interpret is None:
-        # decide by the MESH's devices: a CPU mesh under a TPU-default
-        # backend (the dryrun case) must interpret, and vice versa
-        interpret = mesh.devices.flat[0].platform != "tpu"
-
-    # Per-shard variant selection (full / tchunk) via FusedBeamformer on a
-    # local-shape slice of the tables — a reference-shape shard would blow
-    # VMEM in the full variant just like on one chip.
-    t_loc = dataclasses.replace(
-        t,
-        W=jax.device_put(np.asarray(t.W)[:D_loc], jax.devices()[0]),
-        Wc=None if t.Wc is None else jax.device_put(
-            np.asarray(t.Wc)[:, :D_loc], jax.devices()[0]))
-    selector = pk.FusedBeamformer(
-        t_loc, tile_d=min(tile_d, D_loc), chunk_b=chunk_b,
-        interpret=interpret, vmem_budget=vmem_budget)
-    if not selector.fits_vmem:
-        # same loud-fallback contract as the single-chip path: launching
-        # the full-VMEM kernel the selector just rejected would fail in
-        # Mosaic; the XLA SPMD formulation handles any shape
-        import logging
-        logging.getLogger(__name__).warning(
-            "sharded_fused_power: per-shard working set (%.1f MB) exceeds "
-            "VMEM even chunked; using the XLA SPMD path",
-            selector.vmem_bytes / 2**20)
-        fb = sharded_steered_power(mesh, t)
-        fb.variant = "xla_spmd"
-        return fb
-    meta = selector.meta
-    fwd = {"tchunk": pk._fused_forward_tchunk}.get(
-        selector.variant, pk._fused_forward)
-
-    has_wc = t.Wc is not None
-
-    def local(frames, W, Wc, adaptive):
-        return fwd(frames, W, Wc if has_wc else None, adaptive, meta)
-
-    wc_arg = t.Wc if has_wc else jnp.zeros((1,), t.W.dtype)
-    fn = shard_map(
-        local, mesh=mesh,
-        in_specs=(P("data", None, None), P("model", None, None),
-                  P(None, "model", None, None) if has_wc else P(None),
-                  P(None)),
-        out_specs=P("data", "model"),
-        check_vma=False,
-    )
-
-    @jax.jit
-    def run(frames):
-        flat = fn(frames, t.W, wc_arg, t.adaptive)     # (B, DP_total)
-        return flat[:, :D_true].reshape(frames.shape[0], t.res_x, t.res_y)
-
-    # observability: which per-shard kernel variant the selector chose
-    # (tests assert the reference-shape shard picks the chunked-T path)
-    run.variant = selector.variant
-    return run
-
-
 def shard_equiv_tables(et, mesh: Mesh):
     """Lay :class:`~..ops.freq_equiv.EquivFreqTables` out for the mesh:
     the direction axis of the stacked response planes (and of the
@@ -185,9 +104,9 @@ def shard_equiv_tables(et, mesh: Mesh):
     device multiple (padded directions produce zero power and are sliced
     off before the reshape); the small DFT bases replicate.
 
-    This is the production ``high``-rung path
-    (``apps.pipeline.default_power_fn``), so it gets the same multi-chip
-    treatment as the time-domain tables."""
+    The production policy (``apps.pipeline._select_power_backend``)
+    serves ``high`` and ``bf16`` tables on this path, so it gets the same
+    multi-device treatment as the time-domain tables."""
     n_model = mesh.shape["model"]
     D = et.Hs1.shape[0]
     if D % n_model:
@@ -219,8 +138,7 @@ def shard_equiv_tables(et, mesh: Mesh):
 
 
 def sharded_equiv_power(mesh: Mesh, et):
-    """pjit'd EXACT frequency-domain heatmap (the production ``high``
-    path): frames shard over ``data``, the direction axis of the stacked
+    """pjit'd EXACT frequency-domain heatmap: frames shard over ``data``, the direction axis of the stacked
     response planes over ``model`` (driven by the tables' committed
     shardings from :func:`shard_equiv_tables`); XLA inserts the output
     all-gather when the padded flat map is sliced and reshaped.
@@ -240,118 +158,6 @@ def sharded_equiv_power(mesh: Mesh, et):
         return flat[:, :D_true].reshape(frames.shape[0], res_x, res_y)
 
     return lambda frames: run(jax.device_put(frames, data), et)
-
-
-def sharded_equiv_kernel_power(mesh: Mesh, t, mode=None, interpret=None):
-    """Multi-chip fused equiv KERNEL (the production ``high``/``bf16``
-    path at northstar-class shapes): each device runs the Pallas equiv
-    kernel on its (data shard of frames) x (model shard of directions);
-    XLA assembles the (B, X, Y) map at the output boundary.
-
-    ``t`` is :class:`~..ops.beamform.SteeringTables` or
-    :class:`~..ops.freq_equiv.EquivFreqTables`.  Returns
-    ``fn(frames) -> (B, X, Y)``.
-    """
-    import copy
-
-    from jax import shard_map
-
-    from ..ops import equiv_kernel as ek
-    from ..ops import freq_equiv
-
-    et = t if isinstance(t, freq_equiv.EquivFreqTables) \
-        else freq_equiv.make_equiv_tables(t)
-    n_model = mesh.shape["model"]
-    if interpret is None:
-        interpret = mesh.devices.flat[0].platform != "tpu"
-
-    # pad the direction axis so every shard gets an equal, tile-aligned
-    # slice of the response planes (zero rows -> zero power, sliced off)
-    D = et.Hs1.shape[0]
-    tile_d = 128
-    D_loc = _round_up(-(-D // n_model), tile_d)
-    D_pad = D_loc * n_model
-    if D_pad != D:
-        pad = D_pad - D
-
-        def padd(x, axis):
-            shape = list(x.shape)
-            shape[axis] = pad
-            return jnp.concatenate([x, jnp.zeros(shape, x.dtype)],
-                                   axis=axis)
-
-        et = dataclasses.replace(
-            et, Hs1=padd(et.Hs1, 0), Hs2=padd(et.Hs2, 0),
-            Wc=None if et.Wc is None else padd(et.Wc, 1))
-
-    fused = ek.FusedEquivBeamformer(et, mode=mode, tile_d=tile_d,
-                                    interpret=interpret)
-    assert fused.DP == D_pad
-    meta_loc = copy.copy(fused)
-    meta_loc.DP = D_loc
-    kt = fused.kt
-
-    def put(x, spec):
-        return None if x is None else jax.device_put(
-            x, NamedSharding(mesh, spec))
-
-    H1 = put(kt.H1, P(None, None, "model"))
-    H2 = put(kt.H2, P(None, None, "model"))
-    Wc3 = put(kt.Wc3, P(None, None, "model"))
-    ib1, ib2 = put(kt.ib1, P()), put(kt.ib2, P())
-    dft_cat = put(kt.dft_cat, P())
-    adaptive = put(kt.adaptive, P())
-    statics = {f.name: getattr(kt, f.name)
-               for f in dataclasses.fields(kt)
-               if f.metadata.get("static")}
-    has_wc = kt.Wc3 is not None
-    has_adp = kt.adaptive is not None
-
-    def local(frames, H1, H2, ib1, ib2, dft_cat, Wc3, adaptive):
-        kt_loc = ek.EquivKernelTables(
-            H1=H1, H2=H2, ib1=ib1, ib2=ib2, dft_cat=dft_cat,
-            Wc3=Wc3 if has_wc else None,
-            adaptive=adaptive if has_adp else None, **statics)
-        return ek._equiv_forward_flat(frames, kt_loc, meta_loc)
-
-    wc_arg = Wc3 if has_wc else jnp.zeros((1,), jnp.float32)
-    adp_arg = adaptive if has_adp else jnp.zeros((1,), jnp.int32)
-    fn = shard_map(
-        local, mesh=mesh,
-        in_specs=(P("data", None, None),
-                  P(None, None, "model"), P(None, None, "model"),
-                  P(None, None), P(None, None), P(None, None),
-                  P(None, None, "model") if has_wc else P(None),
-                  P(None)),    # adaptive (or its 1-elem dummy): replicated
-        out_specs=P("data", "model"),
-        check_vma=False,
-    )
-
-    data = NamedSharding(mesh, P("data", None, None))
-    n_data = mesh.shape["data"]
-
-    @jax.jit
-    def run(frames, H1, H2, ib1, ib2, dft_cat, wc_arg, adp_arg):
-        flat = fn(frames, H1, H2, ib1, ib2, dft_cat, wc_arg, adp_arg)
-        return flat[:, :D].reshape(frames.shape[0], kt.res_x, kt.res_y)
-
-    def call(frames):
-        # pad the GLOBAL batch so no shard pads internally — per-shard
-        # padding would interleave zero rows into the assembled output
-        B = frames.shape[0]
-        b1 = _round_up(max(-(-B // n_data), 1), 8)
-        bc = min(fused.chunk_b, b1)
-        BPg = _round_up(b1, bc) * n_data
-        frames = jnp.asarray(frames)
-        if BPg != B:
-            frames = jnp.concatenate(
-                [frames, jnp.zeros((BPg - B,) + frames.shape[1:],
-                                   frames.dtype)])
-        out = run(jax.device_put(frames, data), H1, H2, ib1, ib2,
-                  dft_cat, wc_arg, adp_arg)
-        return out[:B]
-
-    return call
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Every operation prefers cv2 (the reference's dependency) and falls back to
 a NumPy implementation so the whole pipeline stays runnable headless on a
-bare TPU-VM.  Only the primitives the pipeline actually uses exist here.
+machine without OpenCV.  Only the primitives the pipeline actually uses exist here.
 """
 
 from __future__ import annotations

@@ -57,3 +57,19 @@ class Stopwatch:
         return {k: {"n": len(v), "total_s": round(sum(v), 4),
                     "mean_ms": round(1e3 * sum(v) / len(v), 3)}
                 for k, v in self.sections.items()}
+
+
+def card() -> str:
+    """``name, power.limit`` of the GPU as nvidia-smi reports them — the
+    line every measurement is recorded beside (a card below its power
+    limit maximum runs slower under load)."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+    return out or "nvidia-smi: no output"
